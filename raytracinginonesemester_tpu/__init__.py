@@ -1,12 +1,12 @@
-"""raytracinginonesemester_tpu — a TPU-native ray-tracing framework.
+"""raytracinginonesemester_tpu — a JAX ray-tracing framework.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of the
 AME/EEE 598 "Ray Tracing in One Semester" reference repository
 (``nirajbabar/raytracinginonesemester``): OBJ meshes, JSON scene graphs,
 physical pinhole cameras, Lambert+Blinn-Phong BRDF, soft shadows, an
 iterative path integrator, an LBVH acceleration structure, and PNG/PPM
-output — formulated as batched array programs sharded over TPU meshes
-instead of per-pixel CUDA threads.
+output — formulated as batched array programs sharded over device
+meshes instead of per-pixel CUDA threads.
 
 Layering (bottom -> top), mirroring the reference layer map in SURVEY.md:
 
@@ -26,7 +26,7 @@ __version__ = "0.1.0"
 from .core.camera import Camera
 from .scene.build import Scene, build_scene, load_scene
 from .scene.config import SceneConfig, load_scene_config
-from .render.renderer import render_hw1, render_scene
+from .render.renderer import render_hw1, render_scene, render_scene_frames
 
 __all__ = [
     "Camera",
@@ -37,4 +37,5 @@ __all__ = [
     "load_scene_config",
     "render_hw1",
     "render_scene",
+    "render_scene_frames",
 ]

@@ -1,6 +1,6 @@
 """Pinhole camera with physical focal-length / sensor-size parameters.
 
-TPU-native re-design of the reference cameras:
+Re-design of the reference cameras:
 
 - ``HW1/include/camera.h:8-93`` — sensor width derived from the pixel
   aspect ratio; integer pixel lookups.
@@ -13,7 +13,7 @@ TPU-native re-design of the reference cameras:
 Instead of a per-pixel method called in a loop, this camera precomputes the
 viewport frame once on the host (in float64, matching the reference's double
 intermediate math) and generates *all* W×H×S ray origins/directions as one
-batched array op — the TPU-friendly formulation of ray generation.
+batched array op.
 """
 
 from __future__ import annotations

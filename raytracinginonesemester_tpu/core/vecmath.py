@@ -1,11 +1,11 @@
 """Batched 3-vector math on ``(..., 3)`` arrays.
 
-TPU-native replacement for the reference's scalar ``Vec3`` headers
+Batched replacement for the reference's scalar ``Vec3`` headers
 (``HW1/include/vec3.h``, ``HW2/HW2/CPUOnly/include/vec3.h``,
 ``HW2/HW2/GPUandCPU/include/vec3.h:1-62``).  Instead of a struct with
 operator overloads, every function here maps over arbitrarily-batched
 float32 arrays whose last axis has length 3, so an entire wavefront of
-rays/normals is one VPU-friendly op.
+rays/normals is one op.
 """
 
 from __future__ import annotations

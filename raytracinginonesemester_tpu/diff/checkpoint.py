@@ -1,7 +1,7 @@
 """Checkpoint/resume for inverse-rendering optimization.
 
 The reference has no checkpointing (renders are one-shot; SURVEY §5) —
-this is the TPU framework's standard-issue equivalent for its new
+this is the framework's standard-issue equivalent for its new
 differentiable-optimization loop: orbax when available, with a
 pickle fallback, saving (params, opt_state, step, losses).
 """

@@ -29,7 +29,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import Array
 
 from ..render.renderer import render_scene
@@ -37,7 +36,6 @@ from ..scene.build import Scene
 
 __all__ = [
     "apply_params",
-    "camera_candidate_context",
     "extract_params",
     "render_loss",
     "make_train_step",
@@ -112,14 +110,13 @@ def apply_params(scene: Scene, params: Dict[str, Array]) -> Scene:
                 grid = build_block_grid(
                     v, _jnp.asarray(scene.geometry.num_triangles),
                     block_size=scene.accel.block_size,
-                    normals=scene.geometry.normals,
                     obj_ids=scene.geometry.obj_id,
                 )
                 # the grid only picks winner triangles (detached
                 # estimator); gradients flow through the integrator's
                 # differentiable winner recompute, so detach every leaf
-                # — otherwise grid tangents reach the non-differentiable
-                # pallas_call traversal and crash its missing JVP rule
+                # — otherwise grid tangents reach the traversal kernel,
+                # which has no JVP rule
                 scene_updates["accel"] = jax.tree.map(
                     jax.lax.stop_gradient, grid)
         elif k == "camera_center":
@@ -157,19 +154,11 @@ def render_loss(
 ) -> Array:
     """Mean-squared pixel loss between the parameterized render and target.
 
-    ``ray_tile``: rays per integrator tile.  API CHANGE (round 4): the
-    default (None) is now 0, the WHOLE frame as one tile — previously
-    16,384-ray tiling.  Faster at production frame sizes, but callers
-    differentiating very large frames who relied on the old default's
-    memory headroom should pass ``ray_tile=16384`` back explicitly.
-    Rationale: the renderer's 16,384-ray tiling exists
-    for memory headroom on huge frames, but under value_and_grad it
-    turns the render into a sequential 32-iteration while loop whose
-    carry stacks every residual — per-tile kernel launches and carry
-    traffic cost ~45 ms/step at 960x540 bounces-2 on v5e (measured,
-    docs/DESIGN.md round 4).  Memory-constrained callers can pass a
-    tile size back and set RT_DIFF_REMAT=1 (remat pays at small tiles,
-    loses at whole-frame)."""
+    ``ray_tile``: rays per integrator tile; the default (None) is 0, the
+    whole frame as one tile.  Under value_and_grad a tiled render
+    becomes a sequential loop whose carry stacks every residual, so
+    whole-frame tiling is the default; callers differentiating very large
+    frames can pass a tile size (e.g. 16384) for memory headroom."""
     img = render_scene(
         apply_params(scene, params),
         jitter_mode=jitter_mode,
@@ -179,44 +168,6 @@ def render_loss(
     return jnp.mean((img - target) ** 2)
 
 
-def camera_candidate_context(scene: Scene, slack: float = 0.05,
-                             chunk: int = 256):
-    """Binned depth-0 context for detached-diff training loops.
-
-    Builds the static binned camera-candidate plan (``ops.binned``) for
-    this CONCRETE scene host-side and returns an
-    ``integrator.diff_candidate_plan`` context manager; enter it around
-    tracing/running the train step and the fused oracle's depth-0
-    bounce streams per-tile triangle candidates instead of dense-testing
-    every block (~15x fewer pairs on the grad-bench scene).
-
-    Contract: the candidate SET is conservative while every vertex
-    stays within ``slack`` of its position in ``scene`` — rebuild this
-    context when the optimizer has moved vertices further (the plan's
-    plane values and block homes are refreshed on-device every step
-    automatically; only the SET is frozen).  Build from the scene with
-    the INITIAL parameters applied (``apply_params``) so slack needs to
-    cover training motion only, not the initial perturbation.
-    """
-    from ..ops.binned import (build_camera_candidate_plan,
-                              plan_candidate_gids)
-    from ..ops.integrator import diff_candidate_plan
-    from ..ops.megakernel import _pad_tiles, quarters_for
-    from ..ops.pallas_kernels import RAY_TILE
-    from ..render.renderer import _swizzled_grid
-
-    assert scene.accel is not None, "binned context needs a block grid"
-    w, h = int(scene.camera.width), int(scene.camera.height)
-    xs, ys, _ = _swizzled_grid(w, h)
-    xs_p, ys_p, _, _ = _pad_tiles(xs, ys)
-    nq = quarters_for(int(scene.accel.tri_index.shape[1]))
-    plan = build_camera_candidate_plan(
-        scene.camera, xs_p, ys_p, scene.accel, RAY_TILE, nq=nq,
-        chunk=chunk, slack=slack)
-    return diff_candidate_plan(np.asarray(plan.meta),
-                               plan_candidate_gids(plan), plan.chunk)
-
-
 def make_train_step(optimizer, jitter_mode: str = "center",
                     spp_override: Optional[int] = None,
                     ray_tile: Optional[int] = None):
@@ -224,8 +175,8 @@ def make_train_step(optimizer, jitter_mode: str = "center",
 
     ``optimizer`` is any optax GradientTransformation.  Gradients flow
     through the full wavefront integrator.  ``ray_tile`` passes through
-    to ``render_loss`` — None = whole-frame (fastest measured); pass a
-    tile size (e.g. 16384) for memory headroom on huge frames.
+    to ``render_loss`` — None = whole-frame; pass a tile size (e.g.
+    16384) for memory headroom on huge frames.
     """
 
     @partial(jax.jit, static_argnames=())

@@ -31,9 +31,9 @@ As ``sigma, gamma -> 0`` the soft image converges to the hard render;
 for finite values every pixel is a smooth function of vertices, camera,
 materials, and lights, so silhouette motion produces real gradients.
 
-TPU shape: one ``lax.scan`` over lane-aligned triangle chunks (the same
-streaming layout as ``ops.intersect.intersect_closest``); the per-chunk
-attribute aggregation is a (R, C) x (C, K) matmul that lands on the MXU.
+Shape: one ``lax.scan`` over triangle chunks (the same streaming
+layout as ``ops.intersect.intersect_closest``); the per-chunk attribute
+aggregation is a (R, C) x (C, K) matmul.
 A streaming running-minimum reference depth keeps every exponent <= 0
 (no overflow), exactly like an online softmax.
 
@@ -193,9 +193,10 @@ def render_soft(
 
         # aggregate: normals need per-(ray, candidate) values; material
         # columns depend only on the candidate, so their aggregation is
-        # an (R, C) x (C, 12) matmul (MXU)
+        # an (R, C) x (C, 12) matmul, in full f32 (no TF32 on the GPU)
         agg_n = jnp.sum(w_c[..., None] * sn, axis=1)  # (R, 3)
-        agg_mat = w_c @ mat_c  # (R, 12)
+        agg_mat = jnp.matmul(w_c, mat_c,
+                             precision=jax.lax.Precision.HIGHEST)  # (R, 12)
         agg_t = jnp.sum(w_c * t, axis=-1)  # (R,)
         new_acc = acc * rescale[:, None] + jnp.concatenate(
             [agg_n, agg_mat, agg_t[:, None]], axis=-1)

@@ -10,7 +10,7 @@ Re-design of the reference loaders:
   (``MeshOBJ.h:429-466``).
 
 The output is a :class:`MeshArrays` of contiguous numpy arrays — the layout
-a TPU renderer wants (uploaded once, indexed with gathers), matching the
+a batched renderer wants (uploaded once, indexed with gathers), matching the
 reference's SoA ``MeshSOA``/``Mesh`` structs (``HW1/include/MeshOBJ.h:12-21``).
 """
 

@@ -1,6 +1,6 @@
 """Batched ray-triangle intersection (Möller–Trumbore) and hit records.
 
-TPU-native formulation of the reference's scalar intersectors:
+Batched formulation of the reference's scalar intersectors:
 
 - ``HW1/include/ray.h:67-117`` — ``ray_intersection`` (t >= 0, FLT_EPSILON
   det cutoff, raw interpolated shading normal, hardcoded metal material),
@@ -236,8 +236,7 @@ def make_hit_frame(
 
     ``tri``/``tn``: optionally the already-gathered (R, 3, 3) winner
     vertices/normals (callers that gathered them for another purpose —
-    e.g. the detached-diff winner recompute, which routes both through
-    the MXU one-hot gather — pass them in, so the gather and its
+    e.g. the detached-diff winner recompute — pass them in, so the gather and its
     backward scatter-add are paid once, not twice).
     """
     idx = jnp.maximum(hits.tri_idx, 0)

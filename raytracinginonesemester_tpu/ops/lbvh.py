@@ -1,6 +1,6 @@
 """LBVH construction (Karras 2012) as batched XLA array ops.
 
-TPU-native re-design of the reference's flagship CUDA component
+Re-design of the reference's flagship CUDA component
 (``GPUandCPU/include/bvh.h:131-445``, ``bvh.cu:1-318``):
 
 - 30-bit Morton codes by bit expansion (``bvh.h:131-151``) — identical

@@ -138,7 +138,6 @@ def shade_direct(
     *,
     dialect: str = "gpu",
     distance_attenuation: bool = False,
-    vis_precomputed: Array = None,
 ) -> Tuple[Array, Array]:
     """Per-hit direct radiance Lo; returns (Lo (R,3), new rng state).
 
@@ -176,10 +175,7 @@ def shade_direct(
         ldir = to_l / dist[:, None]
         ndotl = jnp.maximum(jnp.sum(n_unit * ldir, axis=-1), 0.0)
 
-        if vis_precomputed is not None:
-            # visibility already traced by the fused traversal kernel
-            vis = vis_precomputed[:, li]
-        elif gpu:
+        if gpu:
             # IsInShadow: closest hit with t < dist (shader.h:44-62);
             # traversal tmin is kRayTMin = 1e-4 (query.h:230).
             blocked = occlude_fn(p + n_unit * rt_eps, ldir, 1e-4, dist)

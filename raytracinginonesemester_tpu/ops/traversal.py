@@ -6,11 +6,11 @@ and falls back to brute force on stack overflow.  This module restates it
 as a *wavefront* program: every ray in the batch performs one
 pop/test/push step per iteration in lockstep, with masks for rays whose
 stacks are empty — per-lane control flow becomes ``lax.while_loop`` over
-whole-array ops, which is the only shape XLA/TPU vectorizes.
+whole-array ops.
 
 This is the semantically-exact traversal used for parity testing and
-small scenes; the high-throughput TPU path is ``ops.accel`` (block
-culling + MXU-shaped intersection).
+small scenes; the high-throughput path is ``ops.accel`` (block
+culling) and its GPU kernels (``ops.pallas_kernels``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ __all__ = ["bvh_closest", "STACK_DEPTH"]
 
 # 64-bit keys bound the radix-tree depth by 64 (the reference uses a
 # generous 512, query.h:242, because CUDA stack slots are cheap; our
-# per-ray stack lives in registers/VMEM so we use the tight bound + the
+# per-ray stack is a dense (R, 64) array so we use the tight bound + the
 # same overflow fallback).
 STACK_DEPTH = 64
 

@@ -3,9 +3,9 @@
 The reference is strictly single-process (SURVEY §2: no MPI/NCCL/
 sockets anywhere); multi-host scale-out is the new framework's mandated
 axis.  This module wraps ``jax.distributed`` initialization and builds
-host-by-chip meshes whose *inner* axis rides ICI (fast, intra-slice) and
-*outer* axis rides DCN (inter-host) — the layout rule that keeps hit
-merges and gradient psums off the slow network.
+host-by-device meshes whose *inner* axis stays inside one host (NVLink
+between its cards) and whose *outer* axis spans hosts over the network —
+the layout rule that keeps hit merges off the slow network.
 
 On a single host everything degrades to the local-device mesh, so the
 same render entry point works everywhere.
@@ -33,7 +33,7 @@ def initialize_multihost(
 
     Arguments default to the standard env vars
     (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``
-    or a TPU pod's automatic configuration).
+    or a cluster launcher's automatic configuration).
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -66,10 +66,9 @@ def host_chip_mesh(
 ) -> Mesh:
     """Mesh shaped (hosts * chips/host / mp, mp).
 
-    The model axis is confined to one host's chips so its
-    all_gather/psum hit merges ride ICI; the data axis (pure pixel
-    parallelism, no communication) spans hosts over DCN — matching the
-    BASELINE.md scaling target's layout guidance.
+    The model axis is confined to one host's devices so its
+    all_gather/psum hit merges stay on the intra-host links; the data
+    axis (pure pixel parallelism, no communication) spans hosts.
     """
     devices = np.array(jax.devices())
     n = devices.size

@@ -1,19 +1,16 @@
 """Compacted + load-balanced bounce scheduling under dp x tp meshes.
 
-The single-chip staged wavefront (``ops.wavefront``) requires the whole
-block grid in one kernel's VMEM, so scenes sharded over a model axis
-fall back to the staged XLA integrator — which pays full-wavefront glue
-for every bounce even though ~3% of rays survive depth 0, and whose
+The plain sharded integrator pays full-wavefront glue for every bounce,
+although only a few per cent of camera rays survive depth 0, and its
 alive rays can concentrate on a few data shards (a zoomed-in object
 lights up one shard's pixel rows while the others idle).
 
-This module restates the wavefront ideas at the shard_map level, on the
+This module compacts and rebalances at the shard_map level, on the
 integrator's own bounce step (``ops.integrator.make_bounce_step``, the
 exact per-ray math — so images cannot drift):
 
 1. **Depth 0** runs on every local ray (camera rays are dense).
-2. **Compaction is a sort** (the TPU reorder lesson, docs/DESIGN.md):
-   one multi-operand ``lax.sort`` per shard packs alive rays first,
+2. **Compaction is a sort**: one multi-operand ``lax.sort`` per shard packs alive rays first,
    ordered by (direction octant, origin morton) for traversal
    coherence.
 3. **Rebalance is an all_to_all**: each shard deals its sorted rays
@@ -66,8 +63,8 @@ def _scene_bounds(scene):
 
 
 def _sort_key(o, d, alive, lo, span):
-    """(octant << 24) | origin morton, INT32_MAX for dead rays — the
-    same packing key as ``ops.wavefront._sort_key``."""
+    """(octant << 24) | origin morton, INT32_MAX for dead rays: alive
+    rays first, grouped by direction octant and origin locality."""
     oct_ = (
         jnp.where(d[:, 0] < 0.0, 4, 0)
         | jnp.where(d[:, 1] < 0.0, 2, 0)

@@ -29,7 +29,7 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="raytracinginonesemester_tpu.render",
-        description="TPU-native ray tracer (scene JSON or OBJ inputs)",
+        description="JAX ray tracer (scene JSON or OBJ inputs)",
     )
     ap.add_argument("inputs", nargs="+", help="scene .json or mesh .obj file(s)")
     ap.add_argument("-o", "--output", default=None, help="output PNG path")
@@ -40,7 +40,8 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--accel", default="blocks", choices=("blocks", "none"))
     ap.add_argument("--pallas", action="store_true",
-                    help="trace through the fused Pallas kernels")
+                    help="trace through the Pallas (Triton) traversal "
+                    "kernels; needs a GPU")
     ap.add_argument("--jitter", default="auto",
                     choices=("auto", "wang", "reference_cpu", "center"))
     ap.add_argument("--ppm", default=None, help="also write a PPM P6 file")
@@ -60,6 +61,16 @@ def main(argv=None):
     import dataclasses
 
     import numpy as np
+
+    from ..ops.backend import resolve_traversal
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    if args.pallas:
+        try:
+            resolve_traversal(use_pallas=True)
+        except ValueError as e:
+            ap.error(str(e))
 
     from ..io.image import write_png, write_ppm_p6
     from ..scene.build import build_scene, load_scene

@@ -3,7 +3,7 @@
 The reference renders one-shot: the GPU driver loops over 32-sample
 batches entirely in device registers (``query.cu:39-65``,
 ``antialias.h:39``) and nothing survives a crash but the final PNG.
-SURVEY §5 calls out the TPU framework's equivalent: per-pixel
+SURVEY §5 calls out the batched framework's equivalent: per-pixel
 accumulation buffers make forward-render resume trivial.  This module
 is that equivalent — render ``spp`` in chunks of ``chunk`` samples,
 keep the running radiance SUM on the host, and optionally persist
@@ -26,7 +26,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from .renderer import DEFAULT_RAY_TILE, render_scene
+from .renderer import render_scene
 
 __all__ = ["render_progressive", "save_render_state", "load_render_state"]
 
@@ -59,7 +59,7 @@ def render_progressive(
     spp: Optional[int] = None,
     chunk: int = 1,
     jitter_mode: str = "auto",
-    ray_tile: int = DEFAULT_RAY_TILE,
+    ray_tile: Optional[int] = None,
     state_dir: Optional[str] = None,
     on_chunk: Optional[Callable[[int, np.ndarray], None]] = None,
 ) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Scene building: configs + OBJ files -> device-ready flat arrays.
 
-The TPU analog of the reference's per-node bake loops
+The analog of the reference's per-node bake loops
 (``CPUOnly/src/render.cpp:55-98``, ``GPUandCPU/src/main.cu:164-190``):
 load each mesh node, bake its transform into world space, assign object
 ids, and concatenate everything into one triangle-soup pytree plus a
@@ -103,15 +103,13 @@ class Scene:
         default_factory=lambda: jnp.zeros(3, dtype=jnp.float32)
     )
     accel: object = None  # Optional[ops.accel.BlockGrid]
-    # Pallas kernels vs the XLA block path: None = auto (Pallas on TPU,
-    # XLA elsewhere — interpret-mode Pallas is only for tests)
+    # Traversal implementation (ops.backend.resolve_traversal): None =
+    # the platform's default, True = the Pallas kernels (GPU only),
+    # False = the XLA block path.
     use_pallas: object = dataclasses.field(default=None, metadata=dict(static=True))
-    # True when no material can spawn a contributing secondary ray
-    # (all kr == 0): with diffuse bounces off, the render is provably
-    # primary-visibility + direct lighting, which unlocks the fused
-    # megakernel path (ops.megakernel).  Computed from the concrete
-    # config at build time because values are opaque under jit.
-    terminal_only: bool = dataclasses.field(default=False, metadata=dict(static=True))
+    # Run the Pallas kernels in the Pallas interpreter (CPU tests); only
+    # ever set explicitly.
+    interpret: bool = dataclasses.field(default=False, metadata=dict(static=True))
     # detached-traversal differentiable mode: the block traversal runs
     # under stop_gradient to pick the winner triangle, then a per-ray
     # differentiable Moller-Trumbore on the gathered winner carries the
@@ -169,46 +167,21 @@ def build_scene(config: SceneConfig, scene_path: str = ".", accel: str = "blocks
 
     accel_struct = None
     if accel == "blocks":
-        from ..ops.accel import build_block_grid, build_block_grid_treelet
+        from ..ops.accel import build_block_grid
 
-        # 512-triangle blocks measured fastest on the frog depth-8
-        # workload (199.5 vs 215.7 ms at 128): same dense arithmetic,
-        # 4x fewer scan iterations / per-visit fixed costs, and the
-        # looser per-block slabs cost less than the saved overhead.
-        # Results are bit-identical across block sizes AND layouts
-        # (tie-break on global triangle id).
-        block_size = int(os.environ.get("RT_BLOCK_SIZE", "512"))
-        # Block layout: "runs" (default) = fixed Morton runs, 100% lane
-        # fill.  "treelet" cuts blocks at LBVH subtree boundaries —
-        # MEASURED TIGHTER on the hull proxy (0.63x camera-pass dense
-        # pairs on frog, scripts/probe_treelet_blocks.py) yet SLOWER
-        # on-chip (151 vs 84 ms, frog 1080p depth-8 staged wavefront):
-        # 1.8x the block count means 1.8x scan iterations, slab tests
-        # and VMEM planes, and every firing visit still runs the full
-        # (RT, B) dense test on 55%-filled blocks.  Kept as the
-        # measured block-quality comparison (docs/DESIGN.md round 3).
-        layout = os.environ.get("RT_BLOCK_LAYOUT", "runs")
-        if layout == "treelet":
-            accel_struct = build_block_grid_treelet(
-                geometry.vertices, geometry.num_triangles,
-                normals=geometry.normals, obj_ids=geometry.obj_id,
-                block_size=block_size,
-            )
-        else:
-            accel_struct = build_block_grid(
-                geometry.vertices, jnp.asarray(geometry.num_triangles),
-                normals=geometry.normals, obj_ids=geometry.obj_id,
-                block_size=block_size,
-            )
+        # triangles per block; results are identical across block sizes
+        # (ties break on global triangle id).  Default chosen on the
+        # H100 (PERF.md).
+        block_size = int(os.environ.get("RT_BLOCK_SIZE", "128"))
+        accel_struct = build_block_grid(
+            geometry.vertices, jnp.asarray(geometry.num_triangles),
+            obj_ids=geometry.obj_id, block_size=block_size,
+        )
     elif accel not in (None, "none", "bruteforce"):
         raise ValueError(f"unknown accel {accel!r}")
 
     bg_kind, bg_color = config.background
-    terminal_only = all(
-        float(np.ravel(m.get("kr", 0.0))[0]) == 0.0 for m in materials
-    )
     return Scene(
-        terminal_only=terminal_only,
         accel=accel_struct,
         geometry=geometry,
         materials=MaterialTable.from_dicts(materials),

@@ -75,12 +75,7 @@ class MaterialTable:
         callers mask misses themselves.
 
         All 13 features ride ONE row gather of the concatenated (N, 13)
-        table whose custom VJP turns the table cotangent into a one-hot
-        MXU contraction (``ops.diff_gather.gather_table_small``) —
-        XLA's per-field scatter-add cost 4.5 ms/bounce for the albedo
-        gradient alone at R=518k on v5e (round 4)."""
-        from ..ops.diff_gather import gather_table_small
-
+        table; its VJP is XLA's scatter-add."""
         n = self.kd.shape[0]
         table = jnp.concatenate([
             self.albedo,                      # 0:3
@@ -91,7 +86,7 @@ class MaterialTable:
             self.kr[:, None],                 # 9
             self.emission,                    # 10:13
         ], axis=1)
-        g = gather_table_small(n, table, obj_id)
+        g = table[jnp.clip(obj_id, 0, n - 1)]
         return MaterialTable(
             albedo=g[..., 0:3],
             kd=g[..., 3],

@@ -3,12 +3,11 @@
 The reference keeps buddha/dragon-class meshes for exercising its LBVH
 at scale (``GPUandCPU/include/bvh.cu:93-206``); those blobs are
 stripped from this environment (``/root/reference/.MISSING_LARGE_BLOBS``),
-so >VMEM scenes are synthesized instead by subdividing a real mesh:
+so large scenes are synthesized instead by subdividing a real mesh:
 each triangle splits at its edge midpoints into 4 coplanar children.
 The surface (and therefore the rendered image, up to shading-normal
 interpolation) is unchanged while the triangle count scales 4x per
-level — exactly the stressor the HBM-streamed traversal kernels
-(``ops.pallas_kernels`` streamed variants) need.
+level — a traversal stressor whose structure outgrows the cache.
 
 Vertex normals at the midpoints are the average of the edge endpoints'
 normals (the piecewise-linear interpolation the renderer itself uses),

@@ -13,20 +13,7 @@ import sys
 import time
 from typing import IO, Optional
 
-__all__ = ["MetricsLogger", "progress_bar", "warn_once"]
-
-_WARNED: set = set()
-
-
-def warn_once(key: str, message: str) -> None:
-    """One stderr warning per distinct ``key`` for the process lifetime.
-
-    Used for silent-degradation hazards (e.g. a scene falling off the
-    fused fast path onto the ~10x slower staged integrator) that would
-    otherwise spam once per frame."""
-    if key not in _WARNED:
-        _WARNED.add(key)
-        print(f"[warn] {message}", file=sys.stderr)
+__all__ = ["MetricsLogger", "progress_bar"]
 
 
 class MetricsLogger:

@@ -8,7 +8,7 @@ interactive PyVista window with the camera center, subsampled
 camera->pixel rays, every mesh (transform baked), and the lights; on a
 headless machine (no display / no pyvista) it falls back to the
 matplotlib PNG of ``stage_preview`` — the same inspection content
-without a window, which is the right behavior for TPU pods.
+without a window, which is the right behavior for headless servers.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 Launched twice by the parent test with JAX_COORDINATOR_ADDRESS /
 JAX_NUM_PROCESSES / JAX_PROCESS_ID set; each process owns 4 virtual CPU
-devices, so the cluster presents a 2-host x 4-chip topology — the CPU
-stand-in for a 2-host TPU slice (ICI inner, DCN outer).
+devices, so the cluster presents a 2-host x 4-device topology — the CPU
+stand-in for two multi-card hosts (intra-host inner axis, inter-host
+outer axis).
 
 Renders a scene through ``render_scene_sharded`` on a ``host_chip_mesh``
 and checks the framework's sharding-invariance contract across PROCESS
@@ -11,7 +12,7 @@ boundaries: bit-identical to the local single-process render for pure
 data parallelism, and float-equivalent (atol 2e-5, matching
 ``tests/test_parallel.py``) for the model-sharded compacted path, whose
 ray permutations let XLA reassociate (R, 3) reductions per
-shape/position (``docs/DESIGN.md`` "Round 3" note 4).
+shape/position.
 """
 
 import os
@@ -61,8 +62,8 @@ def main():
     full = np.asarray(multihost_utils.process_allgather(img, tiled=True))
     np.testing.assert_array_equal(full, local)
 
-    # model axis confined to one host's chips (ICI-analog), data axis
-    # spanning both hosts (DCN-analog).  The compacted model-sharded
+    # model axis confined to one host's devices, data axis spanning
+    # both hosts.  The compacted model-sharded
     # path permutes rays through XLA glue, which reassociates (R, 3)
     # reductions per shape/position — float-equivalent only.
     mesh = host_chip_mesh(("data", "model"), model_parallel_per_host=2)

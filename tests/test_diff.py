@@ -154,17 +154,16 @@ def test_detached_traversal_gradients_match_brute(scene, scene_detached,
                               spp_override=1)
     np.testing.assert_allclose(np.asarray(fwd_det),
                                np.asarray(fwd_blocks), rtol=0, atol=1e-6)
-    # matched loop structure (scan, like the non-diff while body):
-    # the knob is an import-time module constant (trace-time env reads
-    # are masked by the jit cache), so patch the constant — monkeypatch
-    # restores it, and the replaced spp forges a fresh jit key
+    # matched loop structure (scan, like the non-diff while body): the
+    # unroll bound is read at trace time, so patch the module constant —
+    # monkeypatch restores it, and the replaced spp forges a fresh jit key
     import raytracinginonesemester_tpu.ops.integrator as integ
 
-    monkeypatch.setattr(integ, "_DIFF_UNROLL_ENV", "0")
+    monkeypatch.setattr(integ, "DIFF_UNROLL_MAX_DEPTH", 0)
     fwd_det_scan = render_scene(
         dataclasses.replace(scene_detached, spp=2),  # new jit key
         jitter_mode="center", spp_override=1)
-    monkeypatch.setattr(integ, "_DIFF_UNROLL_ENV", "")
+    monkeypatch.undo()
     np.testing.assert_array_equal(np.asarray(fwd_det_scan),
                                   np.asarray(fwd_blocks))
     np.testing.assert_allclose(np.asarray(fwd_det), np.asarray(fwd_brute),
@@ -187,15 +186,16 @@ def test_detached_traversal_gradients_match_brute(scene, scene_detached,
 
 
 def test_detached_traversal_gradients_pallas_path(scene, scene_detached):
-    """Detached-diff must also work on the PALLAS traversal path (the
-    TPU-production default): the closest-hit query AND the occlusion
-    query run under stop_gradient, so no tangents ever reach a
-    pallas_call (which has no JVP rule).  Gradients must match the
-    brute-force estimator just like the XLA block path does.
+    """Detached-diff must also work on the Pallas traversal path (the
+    GPU default): the closest-hit query AND the occlusion query run
+    under stop_gradient, so no tangents ever reach a pallas_call (which
+    has no JVP rule).  Gradients must match the brute-force estimator
+    just like the XLA block path does.
 
-    Exercised in interpret mode (this suite is CPU); on TPU the same
+    Exercised in interpret mode (this suite is CPU); on a GPU the same
     code path compiles for real."""
-    scene_pl = dataclasses.replace(scene_detached, use_pallas=True)
+    scene_pl = dataclasses.replace(scene_detached, use_pallas=True,
+                                   interpret=True)
     target = jnp.zeros((54, 96, 3), jnp.float32)
     for keys in (("albedo",), ("vertices",)):
         pb = extract_params(scene, keys=keys)

@@ -56,7 +56,6 @@ def _tri_scene(width=64, height=36, shift=(0.0, 0.0, 0.0)):
         dialect="gpu",
         miss_color=jnp.asarray([0.1, 0.1, 0.3], jnp.float32),
         accel=None,
-        terminal_only=True,
     )
 
 

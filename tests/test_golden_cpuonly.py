@@ -15,8 +15,8 @@ sampling), and ``diffuse_bounce == false`` (the RR draw at
 chains stay fully deterministic, so these goldens cover the terminal
 AND mirror paths of the dialect against the real C++.
 
-The staged path reproduces the oracle byte-for-byte; the fused
-megakernel is within 1/255 everywhere (rsqrt-vs-1/sqrt ulps).
+The XLA block path and the Triton traversal kernels (interpret mode on
+the CPU) both reproduce the oracle byte-for-byte.
 """
 
 import dataclasses
@@ -37,7 +37,7 @@ GOLDENS = os.path.join(HERE, "goldens")
 def _compare(name, pallas, tmp_path, max_diff):
     scene = load_scene(os.path.join(SCENES, f"{name}.json"))
     assert scene.dialect == "cpuonly"
-    scene = dataclasses.replace(scene, use_pallas=pallas)
+    scene = dataclasses.replace(scene, use_pallas=pallas, interpret=pallas)
     img = np.asarray(render_scene(scene))
     out = str(tmp_path / "out.png")
     write_png(out, img, mode="cpuonly")
@@ -54,6 +54,6 @@ def test_cpuonly_golden_staged(name, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["cpuonly_point", "cpuonly_mirror"])
-def test_cpuonly_golden_megakernel(name, tmp_path):
-    """Fused megakernel: within one quantization step of the oracle."""
-    _compare(name, pallas=True, tmp_path=tmp_path, max_diff=1)
+def test_cpuonly_golden_pallas(name, tmp_path):
+    """Triton traversal kernels (interpret mode): byte-exact too."""
+    _compare(name, pallas=True, tmp_path=tmp_path, max_diff=0)

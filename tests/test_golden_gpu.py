@@ -56,13 +56,12 @@ def test_gpu_frog_golden():
 
 
 def test_gpu_frog_golden_pallas():
-    """Same frame through the fused Pallas kernels (interpret mode on
-    CPU): the full integrator with in-kernel normals must match the
-    oracle too."""
+    """Same frame through the Triton traversal kernels (interpret mode on
+    CPU): the full integrator must match the oracle too."""
     import dataclasses
 
     scene = load_scene(str(SCENES / "gpu_frog.json"))
-    scene = dataclasses.replace(scene, use_pallas=True)
+    scene = dataclasses.replace(scene, use_pallas=True, interpret=True)
     img = render_scene(scene, jitter_mode="reference_cpu")
     ours = quantize(np.asarray(img), "gpu")
     golden = read_png(str(GOLDENS / "gpu_frog.png"))
@@ -81,11 +80,11 @@ def test_gpu_cornell_golden():
 
 
 def test_gpu_cornell_golden_pallas():
-    """Same enclosed scene through the fused Pallas kernels."""
+    """Same enclosed scene through the Triton traversal kernels."""
     import dataclasses
 
     scene = load_scene(str(SCENES / "gpu_cornell.json"))
-    scene = dataclasses.replace(scene, use_pallas=True)
+    scene = dataclasses.replace(scene, use_pallas=True, interpret=True)
     img = render_scene(scene, jitter_mode="reference_cpu")
     ours = quantize(np.asarray(img), "gpu")
     golden = read_png(str(GOLDENS / "gpu_cornell.png"))

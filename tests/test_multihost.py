@@ -6,8 +6,8 @@ processes (4 virtual CPU devices each) form a 2-host x 4-chip cluster
 through ``parallel.multihost.initialize_multihost`` and render the same
 scene through ``render_scene_sharded`` on a ``host_chip_mesh`` with a
 model axis — exercising cross-process collectives (the hit-merge
-all_gather rides the "ICI" inner axis, pixel shards span the "DCN"
-outer axis) and the bit-identity contract across process boundaries.
+all_gather rides the intra-host inner axis, pixel shards span the
+inter-host outer axis) and the bit-identity contract across process boundaries.
 """
 
 import os

@@ -95,25 +95,12 @@ def test_dryrun_multichip_entrypoint():
 
 
 def test_dp8_fast_path_bit_identical():
-    """DP sharding through the fused-kernel fast path (the TPU route)
-    must match the unsharded fused render bit-for-bit."""
+    """DP sharding through the Triton traversal kernels (the GPU route,
+    interpret mode here) must match the unsharded render bit-for-bit."""
     import dataclasses
 
     scene = load_scene(SCENE)
-    scene = dataclasses.replace(scene, use_pallas=True)
-    mesh = make_mesh((8,), ("data",))
-    img_s = np.asarray(render_scene_sharded(scene, mesh))
-    img_r = np.asarray(render_scene(scene))
-    np.testing.assert_array_equal(img_s, img_r)
-
-
-def test_dp8_fast_path_wavefront_bit_identical(monkeypatch):
-    """Same, with the sort-compacted wavefront scheduler enabled."""
-    import dataclasses
-
-    monkeypatch.setenv("RT_WAVEFRONT", "1")
-    scene = load_scene(SCENE)
-    scene = dataclasses.replace(scene, use_pallas=True)
+    scene = dataclasses.replace(scene, use_pallas=True, interpret=True)
     mesh = make_mesh((8,), ("data",))
     img_s = np.asarray(render_scene_sharded(scene, mesh))
     img_r = np.asarray(render_scene(scene))
@@ -121,11 +108,8 @@ def test_dp8_fast_path_wavefront_bit_identical(monkeypatch):
 
 
 def test_dp8_fast_path_cpuonly_bit_identical():
-    """DP sharding of a CPUOnly-dialect scene through the fused fast
-    path: same bits as the unsharded fused render.  Regression for the
-    all-sky tile shortcut whose float contraction drifted by 1 ulp
-    depending on tile composition (review finding, session 4): sky
-    pixels must not care which tiles/shards they land in."""
+    """DP sharding of a CPUOnly-dialect scene through the Triton
+    traversal kernels: same bits as the unsharded render."""
     import dataclasses
     import os
 
@@ -133,7 +117,7 @@ def test_dp8_fast_path_cpuonly_bit_identical():
         os.path.dirname(SCENE), "cpuonly_point.json")
     scene = load_scene(scene_path)
     assert scene.dialect == "cpuonly"
-    scene = dataclasses.replace(scene, use_pallas=True)
+    scene = dataclasses.replace(scene, use_pallas=True, interpret=True)
     mesh = make_mesh((8,), ("data",))
     img_s = np.asarray(render_scene_sharded(scene, mesh))
     img_r = np.asarray(render_scene(scene))

@@ -17,7 +17,7 @@ from raytracinginonesemester_tpu.render.progressive import (
 )
 from raytracinginonesemester_tpu.render.renderer import render_scene
 
-from test_megakernel import _two_frog_scene
+from conftest import two_frog_scene as _two_frog_scene
 
 
 def test_progressive_chunk1_bit_identical():

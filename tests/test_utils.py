@@ -14,7 +14,6 @@ from raytracinginonesemester_tpu.utils.timing import (
     Timer,
     measure,
     rays_per_second,
-    sync,
 )
 
 
@@ -129,43 +128,3 @@ def test_subdivide_preserves_surface():
     np.testing.assert_allclose(
         np.where(np.asarray(h0.hit), np.asarray(h0.t), 0.0),
         np.where(np.asarray(h1.hit), np.asarray(h1.t), 0.0), rtol=2e-5)
-
-
-def test_warn_once_and_ineligible_reason():
-    """warn_once emits one line per key per process; the megakernel
-    eligibility reasons name the actual blocker (round-3 verdict #7)."""
-    import io
-    import sys as _sys
-
-    from raytracinginonesemester_tpu.utils import logging as ulog
-
-    buf = io.StringIO()
-    old = _sys.stderr
-    _sys.stderr = buf
-    try:
-        ulog.warn_once("k1", "message one")
-        ulog.warn_once("k1", "message one")
-        ulog.warn_once("k2", "message two")
-    finally:
-        _sys.stderr = old
-    out = buf.getvalue()
-    assert out.count("message one") == 1 and out.count("message two") == 1
-
-    import dataclasses
-
-    from raytracinginonesemester_tpu.ops.megakernel import (
-        megakernel_eligible, megakernel_ineligible_reason)
-    from raytracinginonesemester_tpu.scene.build import load_scene
-
-    scene = load_scene("tests/assets/scenes/gpu_spheres.json",
-                       accel="blocks")
-    assert megakernel_ineligible_reason(scene, "wang") is None
-    assert megakernel_eligible(scene, "wang")
-    r = megakernel_ineligible_reason(scene, "reference_cpu")
-    assert r is not None and "reference_cpu" in r
-    r = megakernel_ineligible_reason(
-        dataclasses.replace(scene, accel=None), "wang")
-    assert r is not None and "accel" in r
-    r = megakernel_ineligible_reason(
-        dataclasses.replace(scene, differentiable=True), "wang")
-    assert r is not None and r.startswith("differentiable")
